@@ -1,12 +1,12 @@
-"""bloomsearch-tpu: a TPU-native keyword-search engine over JSON rows.
+"""bloomsearch-tpu: a device-accelerated keyword-search engine over JSON rows.
 
 Re-designed from scratch with the capabilities of danthegoodman1/bloomsearch
 (see SURVEY.md): hierarchical bloom-filter indexing (field / token /
 field:token keyspaces at file and block granularity), partition + minmax
 prefilters, immutable single-pass data files with atomic metadata updates,
 merge/compaction, and exact (re-verified) streaming query results — with the
-filter probe path re-architected as dense HBM-resident filter banks driven by
-JAX/Pallas kernels.
+filter probe path re-architected as dense HBM-resident filter banks probed by
+XLA-compiled JAX programs, and hot rows scanned on the GPU by a Pallas kernel.
 """
 
 from .minmax import MinMaxIndex, convert_to_min_max_int64, convert_to_int64, update_min_max_index

@@ -1736,7 +1736,12 @@ BS_EXPORT int64_t bs_verify_rows(
 // Python over the returned per-needle bitmasks.
 // ---------------------------------------------------------------------------
 
+// zstd is optional: without its header the library still builds, zstd
+// blocks report "unsupported codec" (-5) and the caller decodes them in
+// Python instead.
+#if __has_include(<zstd.h>)
 #include <zstd.h>
+#define BS_HAVE_ZSTD 1
 
 static int64_t decompress_zstd_stream(const uint8_t* comp, int64_t comp_len,
                                       uint8_t* out, int64_t out_cap) {
@@ -1764,6 +1769,15 @@ static int64_t decompress_zstd_stream(const uint8_t* comp, int64_t comp_len,
   // verify_crc=0 callers.
   if (last_rc != 0) return -2;
   return (int64_t)ob.pos;
+}
+#endif
+
+BS_EXPORT int32_t bs_has_zstd() {
+#ifdef BS_HAVE_ZSTD
+  return 1;
+#else
+  return 0;
+#endif
 }
 
 static int64_t decompress_snappy_stream(const uint8_t* comp, int64_t comp_len,
@@ -1811,7 +1825,11 @@ BS_EXPORT int64_t bs_process_block(
   } else if (codec == 1) {
     dlen = decompress_snappy_stream(comp, comp_len, out, out_cap);
   } else if (codec == 2) {
+#ifdef BS_HAVE_ZSTD
     dlen = decompress_zstd_stream(comp, comp_len, out, out_cap);
+#else
+    return -5;
+#endif
   } else {
     return -5;
   }

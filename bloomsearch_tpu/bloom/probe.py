@@ -8,10 +8,10 @@ one vectorized pass producing a ``[num_terms, num_blocks]`` match matrix.
 The AND/OR expression tree then evaluates as masked reductions over term
 rows, yielding a per-block survival bitmap.
 
-The same semantics run on three backends sharing this compilation step:
+The same semantics run on two backends sharing this compilation step:
 - host numpy (this module) — always available, the semantic spec
-- XLA/jnp (``bank.py``) — jit-compiled gathers over HBM-resident banks
-- Pallas kernel (``pallas_kernels.py``) — scalar-prefetched row DMA
+- XLA/jnp (``device_probe.py``, driven by ``bank.py``) — fused row
+  gathers over device-resident banks, one program per launch shape
 
 Semantics preserved exactly (bloom_tree_engine.go:854-870): empty OR ⇒
 false, empty AND ⇒ true, nil expression/condition ⇒ true (bloom only ever

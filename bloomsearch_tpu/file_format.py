@@ -2,7 +2,7 @@
 
 Structural parity with the reference format (FILE_FORMAT.md:9-75,
 file_format.go, footer writer bloom_tree_engine.go:2072-2103) with one
-TPU-first redesign: instead of serializing each block's bloom-filter triple
+Device-first redesign: instead of serializing each block's bloom-filter triple
 adjacent to the block (read back one block at a time — file_format.go:80-142),
 all block filters of a file are packed into **dense filter banks** stored in
 probe layout, so a single read (and a single device upload) covers every

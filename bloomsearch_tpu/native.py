@@ -25,6 +25,20 @@ _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
+def _have_zstd_header() -> bool:
+    """Whether g++ finds <zstd.h>: the source then compiles its zstd decoder
+    (``__has_include``) and the build links -lzstd; otherwise both drop
+    out and zstd blocks decode in Python."""
+    try:
+        r = subprocess.run(
+            ["g++", "-E", "-x", "c++", "-"], input=b"#include <zstd.h>\n",
+            capture_output=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return r.returncode == 0
+
+
 def _compile() -> bool:
     # Build to a temp path and rename into place: `g++ -o` truncates the
     # output in place, which SIGBUSes any running process that has the old
@@ -32,8 +46,10 @@ def _compile() -> bool:
     tmp = f"{_SO}.build.{os.getpid()}"
     cmd = [
         "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-fvisibility=hidden", "-o", tmp, _SRC, "-lzstd",
+        "-fvisibility=hidden", "-o", tmp, _SRC,
     ]
+    if _have_zstd_header():
+        cmd.append("-lzstd")
     try:
         result = subprocess.run(cmd, capture_output=True, timeout=120)
         if result.returncode != 0:
@@ -152,6 +168,8 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p,
         ]
         lib.bs_process_block.restype = ctypes.c_int64
+        lib.bs_has_zstd.argtypes = []
+        lib.bs_has_zstd.restype = ctypes.c_int32
         if hasattr(lib, "bs_pack_stream"):  # absent in pre-round-3 cached .so
             lib.bs_pack_stream.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64,
@@ -649,6 +667,13 @@ def process_block(
         row_lengths[:rows].copy(),
         scan,
     )
+
+
+def has_zstd() -> bool:
+    """Whether the native block pipeline decodes zstd (built against
+    <zstd.h>); without it zstd blocks decode through the Python codec."""
+    lib = _load()
+    return lib is not None and bool(lib.bs_has_zstd())
 
 
 SNAPPY_MAX_BLOCK_INPUT = 65536

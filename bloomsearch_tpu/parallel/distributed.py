@@ -5,7 +5,7 @@ that prefilters, scatters work to peers, and streams rows back per query.
 Implemented here against a minimal :class:`QueryPeer` protocol —
 ``BloomSearchEngine`` satisfies it directly, so peers can be local engines
 over distinct stores today and remote proxies (same protocol over any RPC)
-without coordinator changes. Within one host, the TPU-native scale-out is
+without coordinator changes. Within one host, the device-native scale-out is
 the mesh-sharded probe (mesh.py); this layer is the cross-host seam.
 
 Semantics match the single-engine streaming contract: unordered rows to

@@ -1,21 +1,24 @@
-"""Multi-chip probe sharding over a jax.sharding.Mesh.
+"""Multi-device probe and scan sharding over a jax.sharding.Mesh.
 
 The reference's only scaling dimension is data-parallelism over blocks —
 a bounded worker pool on one host (SURVEY.md §2, parallelism items 3-4) and
-a README-only scatter/gather design (README.md:397-418). The TPU-native
+a README-only scatter/gather design (README.md:397-418). The device-native
 equivalent maps that dimension onto the device mesh: the superbank's block
-axis shards across chips (``P(None, "blocks")``), query-term probe positions
-replicate (the broadcast), each chip probes its local shard with the same
-kernel (shard_map), and the packed per-block match bitmaps ride ICI back via
-the all-gather XLA inserts when the sharded output is consumed replicated.
+axis shards across devices (``P(None, "blocks")``), query-term probe
+positions replicate (the broadcast), each device probes its local shard with
+the same program (shard_map), and the packed per-block match bitmaps come
+back through the all-gather XLA inserts when the sharded output is consumed
+replicated (NCCL over NVLink on a GPU host). The mesh is 1-D: every card
+reaches every other at the same rate.
 
-Filter banks beyond one chip's HBM therefore scale linearly in chips, and a
-query still costs ONE launch per param group regardless of mesh size.
+Filter banks beyond one device's memory therefore scale linearly in devices,
+and a query still costs ONE launch per param group regardless of mesh size.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Optional
 
 import jax
@@ -24,15 +27,50 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..bloom.pallas_kernels import (
-    byte_scan_pallas_swar,
-    pack_bitmap,
-    probe_bank_pallas_tk,
-    probe_bank_xla,
-    round_up_rows,
-)
+from ..bloom.device_probe import cnf_survivors, pack_bitmap, probe_bank_xla
 
 BLOCK_AXIS = "blocks"
+
+# One lock for every multi-device program this process launches. Collectives
+# rendezvous per execution: when several threads (warmup's bank, scan and pin
+# passes beside queries) enqueue multi-device programs at once, the devices
+# can receive them in different orders and each waits forever in a different
+# program's collective (seen on four H100s as NCCL clique rendezvous with
+# mismatched run ids). Holding the lock from dispatch until the result is
+# ready keeps every device on the same program. Single-device calls
+# (mesh=None) never take it.
+MESH_LAUNCH_LOCK = threading.Lock()
+
+
+def serialized_launch(jitted):
+    """A jitted multi-device program whose every call holds MESH_LAUNCH_LOCK
+    until its result is ready."""
+
+    @functools.wraps(jitted)
+    def launch(*args, **kwargs):
+        with MESH_LAUNCH_LOCK:
+            return jax.block_until_ready(jitted(*args, **kwargs))
+
+    launch.lower = jitted.lower  # AOT precompiles dispatch nothing
+    return launch
+
+
+def _mesh_program(**jit_kwargs):
+    """jax.jit for a program whose first argument is the (static) mesh; calls
+    with a mesh go through serialized_launch."""
+
+    def wrap(fn):
+        jitted = jax.jit(fn, **jit_kwargs)
+        locked = serialized_launch(jitted)
+
+        @functools.wraps(fn)
+        def launch(mesh, *args, **kwargs):
+            return (jitted if mesh is None else locked)(mesh, *args, **kwargs)
+
+        launch.lower = jitted.lower
+        return launch
+
+    return wrap
 
 
 def default_mesh(n_devices: Optional[int] = None) -> Mesh:
@@ -44,7 +82,7 @@ def default_mesh(n_devices: Optional[int] = None) -> Mesh:
 
 
 def pad_columns_for_mesh(c: int, mesh: Mesh) -> int:
-    """Columns must split evenly into 128-lane shards."""
+    """Columns must split evenly into 128-column shards."""
     n = mesh.shape[BLOCK_AXIS]
     unit = 128 * n
     return ((c + unit - 1) // unit) * unit
@@ -62,23 +100,23 @@ def _constrain(x: jax.Array, mesh: Optional[Mesh]) -> jax.Array:
 #
 # The engine's Superbank (bloom/bank.py) mutates its device array on flush
 # (append columns), tombstone (compaction), and growth. Each op below keeps
-# the block axis sharded across the mesh so a bank larger than one chip's HBM
+# the block axis sharded across the mesh so a bank larger than one device
 # stays usable; with mesh=None they lower to the plain single-device ops.
 # None are on the query hot path — probes dominate; these run once per
 # flush/merge.
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "rows", "cols"))
+@_mesh_program(static_argnames=("mesh", "rows", "cols"))
 def sharded_zeros(mesh: Optional[Mesh], rows: int, cols: int) -> jax.Array:
     return _constrain(jnp.zeros((rows, cols), jnp.uint32), mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "new_cols"))
+@_mesh_program(static_argnames=("mesh", "new_cols"))
 def sharded_pad_columns(mesh: Optional[Mesh], bank: jax.Array, new_cols: int) -> jax.Array:
     return _constrain(jnp.pad(bank, ((0, 0), (0, new_cols - bank.shape[1]))), mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh",))
+@_mesh_program(static_argnames=("mesh",))
 def sharded_update_columns(
     mesh: Optional[Mesh], bank: jax.Array, chunk: jax.Array, start: jax.Array
 ) -> jax.Array:
@@ -86,7 +124,7 @@ def sharded_update_columns(
     return _constrain(out, mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "new_cols"))
+@_mesh_program(static_argnames=("mesh", "new_cols"))
 def sharded_take_columns(
     mesh: Optional[Mesh], bank: jax.Array, idx: jax.Array, new_cols: int
 ) -> jax.Array:
@@ -99,25 +137,19 @@ def sharded_take_columns(
 def shard_bank(mesh: Mesh, bank2d: np.ndarray) -> jax.Array:
     """Place a host bank [rows, C] onto the mesh, block axis sharded.
 
-    Pads rows to the sublane group and C to a lane multiple per shard.
+    Pads C to a 128-column multiple per shard.
     """
     rows, c = bank2d.shape
-    rows_p = round_up_rows(rows)
     c_p = pad_columns_for_mesh(c, mesh)
-    if (rows_p, c_p) != (rows, c):
-        padded = np.zeros((rows_p, c_p), dtype=np.uint32)
-        padded[:rows, :c] = bank2d
+    if c_p != c:
+        padded = np.zeros((rows, c_p), dtype=np.uint32)
+        padded[:, :c] = bank2d
         bank2d = padded
     sharding = NamedSharding(mesh, P(None, BLOCK_AXIS))
     return jax.device_put(jnp.asarray(bank2d), sharding)
 
 
-_pack_bitmap = pack_bitmap  # shared bitmap contract (pallas_kernels)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("mesh", "T", "K", "use_pallas", "gather", "interpret")
-)
+@_mesh_program(static_argnames=("mesh", "T", "K", "gather"))
 def sharded_probe_packed(
     mesh: Mesh,
     bank2d: jax.Array,  # [rows, C] sharded P(None, "blocks")
@@ -125,35 +157,24 @@ def sharded_probe_packed(
     shift: jax.Array,  # int32[T*K] replicated
     T: int,
     K: int,
-    use_pallas: bool = False,
     gather: bool = True,
-    interpret: bool = False,
 ) -> jax.Array:
     """Probe every shard's blocks -> packed uint32[T, C/32] match bitmap.
 
-    Each device runs the identical probe kernel on its local block shard;
-    the packed bitmaps concatenate along the block axis. With ``gather`` the
-    result is replicated (XLA all-gathers the shards over ICI); otherwise it
-    stays sharded for downstream sharded consumption. ``interpret`` runs the
-    Pallas kernel in interpret mode (CPU validation of the production path).
+    Each device runs the identical probe on its local block shard; the
+    packed bitmaps concatenate along the block axis. With ``gather`` the
+    result is replicated (XLA all-gathers the shards); otherwise it stays
+    sharded for downstream sharded consumption.
     """
 
     def local(bank_local: jax.Array, fr: jax.Array, sh: jax.Array) -> jax.Array:
-        if use_pallas:
-            match = probe_bank_pallas_tk(bank_local, fr, sh, T, K, interpret=interpret) != 0
-        else:
-            match = probe_bank_xla(bank_local, fr, sh, K)
-        return _pack_bitmap(match)
+        return pack_bitmap(probe_bank_xla(bank_local, fr, sh, K))
 
-    out_spec = P(None, BLOCK_AXIS)
     shmapped = shard_map(
         local,
         mesh=mesh,
         in_specs=(P(None, BLOCK_AXIS), P(), P()),
-        out_specs=out_spec,
-        # Pallas out_shapes carry no vma metadata; the body is purely
-        # shard-local so the varying-across-mesh check adds nothing here.
-        check_vma=False,
+        out_specs=P(None, BLOCK_AXIS),
     )
     packed = shmapped(bank2d, row_idx, shift)
     if gather:
@@ -163,7 +184,7 @@ def sharded_probe_packed(
     return packed
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "T", "K", "use_pallas", "interpret"))
+@_mesh_program(static_argnames=("mesh", "T", "K"))
 def sharded_query_step(
     mesh: Mesh,
     bank2d: jax.Array,  # [rows, C] sharded P(None, "blocks")
@@ -172,31 +193,26 @@ def sharded_query_step(
     and_mask: jax.Array,  # bool[T]: terms under the top-level AND
     T: int,
     K: int,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ):
     """The full sharded query step: probe + expression reduce + global stats.
 
     Evaluates a top-level AND over the masked terms entirely on-device
-    (arbitrary AND/OR trees evaluate host-side over the packed bitmap; the
-    flat-AND case — the overwhelmingly common query shape — stays fused
-    here), packs the surviving-block bitmap, and psums the per-shard
-    survivor count so the scheduler can size the decode worker pool without
-    waiting for the bitmap transfer.
+    (arbitrary AND/OR trees take sharded_probe_clauses; the flat-AND case —
+    the overwhelmingly common query shape — stays fused here), packs the
+    surviving-block bitmap, and psums the per-shard survivor count so the
+    scheduler can size the decode worker pool without waiting for the
+    bitmap transfer.
 
     Returns (packed_survivors uint32[C/32] replicated, total_survivors i32).
     """
 
     def local(bank_local, fr, sh, mask):
-        if use_pallas:
-            match = probe_bank_pallas_tk(bank_local, fr, sh, T, K, interpret=interpret) != 0
-        else:
-            match = probe_bank_xla(bank_local, fr, sh, K)
+        match = probe_bank_xla(bank_local, fr, sh, K)
         # AND over active terms; inactive terms contribute True.
         survives = jnp.all(match | ~mask[:, None], axis=0)  # bool[C_local]
-        packed = _pack_bitmap(survives[None, :])[0]  # uint32[C_local/32]
+        packed = pack_bitmap(survives[None, :])[0]  # uint32[C_local/32]
         count = jnp.sum(survives.astype(jnp.int32))
-        total = jax.lax.psum(count, BLOCK_AXIS)  # ICI collective
+        total = jax.lax.psum(count, BLOCK_AXIS)
         return packed, total
 
     shmapped = shard_map(
@@ -204,14 +220,13 @@ def sharded_query_step(
         mesh=mesh,
         in_specs=(P(None, BLOCK_AXIS), P(), P(), P()),
         out_specs=(P(BLOCK_AXIS), P()),
-        check_vma=False,
     )
     packed, total = shmapped(bank2d, row_idx, shift, and_mask)
     packed = jax.lax.with_sharding_constraint(packed, NamedSharding(mesh, P()))
     return packed, total
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "T", "K", "use_pallas", "interpret"))
+@_mesh_program(static_argnames=("mesh", "T", "K"))
 def sharded_probe_clauses(
     mesh: Mesh,
     bank2d: jax.Array,  # [rows, C] sharded P(None, "blocks")
@@ -221,33 +236,24 @@ def sharded_probe_clauses(
     member_mask: jax.Array,  # float32[M, Cl] replicated
     T: int,
     K: int,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> jax.Array:
     """Sharded probe + fused CNF evaluation -> packed uint32[M, C/32].
 
-    The multi-chip form of pallas_kernels.probe_clauses_pack: each chip
-    probes its block shard and reduces the CNF locally (two small matmuls
-    riding the MXU); only the per-member survivor bitmaps cross ICI when
-    the replicated result gathers.
+    The multi-device form of device_probe.probe_clauses_pack: each device
+    probes its block shard and reduces the CNF locally; only the
+    per-member survivor bitmaps cross devices when the replicated result
+    gathers.
     """
 
     def local(bank_local, fr, sh, cmask, mmask):
-        if use_pallas:
-            match = probe_bank_pallas_tk(bank_local, fr, sh, T, K, interpret=interpret) != 0
-        else:
-            match = probe_bank_xla(bank_local, fr, sh, K)
-        m = match.astype(jnp.float32)
-        clause_false = (cmask @ m) < 0.5
-        viol = (mmask @ clause_false.astype(jnp.float32)) > 0.5
-        return _pack_bitmap(~viol)
+        match = probe_bank_xla(bank_local, fr, sh, K)
+        return pack_bitmap(cnf_survivors(match, cmask, mmask))
 
     shmapped = shard_map(
         local,
         mesh=mesh,
         in_specs=(P(None, BLOCK_AXIS), P(), P(), P(), P()),
         out_specs=P(None, BLOCK_AXIS),
-        check_vma=False,
     )
     packed = shmapped(bank2d, row_idx, shift, clause_mask, member_mask)
     return jax.lax.with_sharding_constraint(packed, NamedSharding(mesh, P()))
@@ -263,10 +269,10 @@ def unpack_bitmap(packed: np.ndarray, num_cols: int) -> np.ndarray:
 
 # --- Row-axis variants (serving row cache) ----------------------------------
 #
-# The device row cache shards its superbatch matrices along ROWS over the
-# same 1-D mesh (uint8[rows, width], P("blocks", None)): pinned-row capacity
-# and scan compute then scale linearly in chips, mirroring what the column
-# helpers above do for filter superbanks.
+# The device row cache shards its stream matrix along CHUNKS over the same
+# 1-D mesh (int32[chunks, 128], P("blocks", None)): pinned capacity and scan
+# compute then scale linearly in devices, mirroring what the column helpers
+# above do for filter superbanks.
 
 
 def rows_sharding(mesh: Mesh) -> NamedSharding:
@@ -277,19 +283,19 @@ def _constrain_rows(x: jax.Array, mesh: Optional[Mesh]) -> jax.Array:
     return x if mesh is None else jax.lax.with_sharding_constraint(x, rows_sharding(mesh))
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "rows", "cols", "dtype"))
+@_mesh_program(static_argnames=("mesh", "rows", "cols", "dtype"))
 def sharded_zeros_rows(
     mesh: Optional[Mesh], rows: int, cols: int, dtype=jnp.uint8
 ) -> jax.Array:
     return _constrain_rows(jnp.zeros((rows, cols), dtype), mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "new_rows"))
+@_mesh_program(static_argnames=("mesh", "new_rows"))
 def sharded_pad_rows(mesh: Optional[Mesh], mat: jax.Array, new_rows: int) -> jax.Array:
     return _constrain_rows(jnp.pad(mat, ((0, new_rows - mat.shape[0]), (0, 0))), mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh",))
+@_mesh_program(static_argnames=("mesh",))
 def sharded_update_rows(
     mesh: Optional[Mesh], mat: jax.Array, chunk: jax.Array, start: jax.Array
 ) -> jax.Array:
@@ -297,7 +303,7 @@ def sharded_update_rows(
     return _constrain_rows(out, mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh",), donate_argnums=(1,))
+@_mesh_program(static_argnames=("mesh",), donate_argnums=(1,))
 def sharded_update_rows_donated(
     mesh: Optional[Mesh], mat: jax.Array, chunk: jax.Array, start: jax.Array
 ) -> jax.Array:
@@ -311,7 +317,7 @@ def sharded_update_rows_donated(
     return _constrain_rows(out, mesh)
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "new_rows"))
+@_mesh_program(static_argnames=("mesh", "new_rows"))
 def sharded_take_rows(
     mesh: Optional[Mesh], mat: jax.Array, idx: jax.Array, new_rows: int
 ) -> jax.Array:
@@ -321,42 +327,37 @@ def sharded_take_rows(
     return _constrain_rows(out, mesh)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "mesh", "n_real", "max_words", "slots", "stream_stride", "interpret"
-    ),
-)
 def sharded_scan_all_rows(
     mesh: Mesh,
-    rows32: jax.Array,  # int32[R, P4] packed rows, sharded P("blocks", None)
+    rows32: jax.Array,  # int32[R, P4] stream chunks, sharded P("blocks", None)
     needles: jax.Array,  # int32[N, MAX_SCAN_WINDOW]
     lens: jax.Array,  # int32[N]
     *,
+    impl: str,
     n_real: int,
     max_words: int,
-    slots: int = 1,
-    stream_stride: int = 0,
-    interpret: bool = False,
+    valid_words: int,
 ) -> jax.Array:
-    """Scan every resident row on its own chip -> packed uint32[N, R*slots/32]
-    over LOGICAL rows.
+    """Scan every resident chunk on its own device -> packed
+    uint32[n_real, R/32] per-chunk bitmap, replicated.
 
-    Each device runs the SWAR byte-scan kernel over its local physical-row
-    shard (logical rows stay contiguous per shard, so the per-shard logical
-    bitmaps concatenate along the word axis bit-for-bit with the unsharded
-    kernel's output). The row cache pads capacities to 512 x mesh size
-    physical rows, making every local shard kernel-tileable. With
-    stream_stride > 0 physical rows are overlapped stream chunks and the
-    bitmap is per chunk (rowcache.py stream mode); chunk overlap bytes are
-    duplicated INTO each chunk at pack time, so shard boundaries need no
-    halo exchange.
+    Traced inside the row cache's jitted scan (rowcache._device_scan_fn),
+    which launches through serialized_launch.
+
+    Each device runs the stream scan (``impl``, as route.scan_impl chose)
+    over its local chunk shard; chunks stay contiguous per shard, so the
+    per-shard bitmaps concatenate along the word axis bit-for-bit with the
+    unsharded scan's output. The row cache pads capacity to 512 x mesh size
+    chunks, so every shard splits into whole bitmap words. Chunk overlap
+    bytes are duplicated INTO each chunk at pack time, so shard boundaries
+    need no halo exchange.
     """
+    from ..stream_scan import scan_stream
+
     def local_scan(rows_l, needles_l, lens_l):
-        return byte_scan_pallas_swar(
-            rows_l, needles_l, lens_l,
-            n_real=n_real, max_words=max_words, slots=slots,
-            stream_stride=stream_stride, interpret=interpret,
+        return scan_stream(
+            rows_l, needles_l, lens_l, impl=impl,
+            n_real=n_real, max_words=max_words, valid_words=valid_words,
         )
 
     shmapped = shard_map(
@@ -364,6 +365,8 @@ def sharded_scan_all_rows(
         mesh=mesh,
         in_specs=(P(BLOCK_AXIS, None), P(), P()),
         out_specs=P(None, BLOCK_AXIS),
+        # A Pallas kernel's outputs carry no varying-across-mesh type; the
+        # body is purely shard-local.
         check_vma=False,
     )
     packed = shmapped(rows32, needles, lens)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import queue
 import random
 import string
@@ -143,6 +144,62 @@ def cmd_generate(args) -> None:
     )
 
 
+# Generated datasets live inside the checkout (listed in .gitignore).
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".data")
+
+
+def dataset_dir(name: str, target_mb: int, seed: int, compression: str) -> str:
+    return os.path.join(DATA_DIR, f"{name}-{compression}-{target_mb}mb-seed{seed}")
+
+
+def cached_dataset(
+    name: str,
+    target_mb: int,
+    seed: int,
+    compression: Optional[str] = None,
+    log=lambda msg: print(msg, file=sys.stderr),
+    generate: bool = True,
+) -> Optional[str]:
+    """The generate_fast dataset ``name`` under DATA_DIR, generated on first
+    use (a GENERATION_COMPLETE marker holds its stats) -> its directory, or
+    None when it is absent and ``generate`` is False."""
+    import shutil
+
+    from .engine import _default_compression
+
+    compression = compression or _default_compression()
+    d = dataset_dir(name, target_mb, seed, compression)
+    marker = os.path.join(d, "GENERATION_COMPLETE")
+    if os.path.exists(marker):
+        log(f"{name} dataset present: {d}")
+        return d
+    if not generate:
+        return None
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    gen = generate_fast(d, target_mb, seed=seed, compression=compression, log=log)
+    with open(marker, "w") as fh:
+        json.dump(gen, fh)
+    log(f"{name} dataset generated: {gen}")
+    return d
+
+
+def vocabulary(rng) -> tuple[list[str], list[str]]:
+    """generate_fast's key and word pools, drawn from ``rng`` (a
+    random.Random seeded with the dataset seed): 16k keys of 4-9 letters and
+    32k value words of 3-11 characters. Any word of the pool is a token that
+    appears throughout the dataset (broad queries use ``words[0]``)."""
+    keys = [
+        "".join(rng.choices(string.ascii_lowercase, k=rng.randrange(4, 10)))
+        for _ in range(1 << 14)
+    ]
+    words = [
+        "".join(rng.choices(string.ascii_lowercase + string.digits, k=rng.randrange(3, 12)))
+        for _ in range(1 << 15)
+    ]
+    return keys, words
+
+
 def generate_fast(
     directory: str,
     target_mb: int,
@@ -174,14 +231,7 @@ def generate_fast(
         compression = _default_compression()
     rng = _random.Random(seed)
     np_rng = np.random.default_rng(seed)
-    keys = [
-        "".join(rng.choices(string.ascii_lowercase, k=rng.randrange(4, 10)))
-        for _ in range(1 << 14)
-    ]
-    words = [
-        "".join(rng.choices(string.ascii_lowercase + string.digits, k=rng.randrange(3, 12)))
-        for _ in range(1 << 15)
-    ]
+    keys, words = vocabulary(rng)
 
     store = FileSystemDataStore(directory)
     # Physical layout = the reference perf harness config (:35-45): the
@@ -191,6 +241,7 @@ def generate_fast(
     # defaults on high-cardinality data.
     config = BloomSearchEngineConfig(
         row_data_compression=compression,
+        probe_backend="host",  # ingest only: never open the device
         block_bloom_expected_items=block_items,
         max_row_group_bytes=10 * 1024 * 1024,
         max_row_group_rows=1_000_000,

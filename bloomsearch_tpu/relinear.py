@@ -709,7 +709,7 @@ class LinearMatcher:
         # else that changes matching semantics (IGNORECASE, MULTILINE,
         # DOTALL, ASCII — global or (?i:...)-scoped) threads through
         # compilation below, so every pattern Go's RE2-class regexp accepts
-        # runs here (VERDICT r4 item 9: the budgeted fallback narrows to
+        # runs here (the budgeted fallback narrows to
         # constructs the reference REJECTS — lookaround, backreferences,
         # possessive/atomic groups — plus over-cap counted expansions).
         if flags & re.LOCALE:

@@ -6,9 +6,9 @@ re-scanning block bytes on every query. Here a block's decompressed row
 buffer is pinned in HBM **once** — lowercased and chunked into overlapped
 512-byte stream chunks packed 4-bytes-per-int32 and appended to ONE shared
 stream matrix ``int32[cap_chunks, 128]`` — and each query's needle scan runs
-on the TPU as ONE SWAR kernel launch over the resident stream (scan-all:
-XLA row gathers run ~1.3-4 GB/s on v5e, so streaming the residency beats
-gathering any subset):
+on the device as ONE SWAR scan launch over the resident stream
+(stream_scan.py; scan-all, so a needle's full-residency bitmap is
+cacheable and every launch has one program shape):
 
 - **Stream chunks, not width-bucketed row matrices** (round 3): each chunk
   carries STREAM_STRIDE=480 payload bytes plus the next 32 bytes duplicated,
@@ -17,7 +17,7 @@ gathering any subset):
   ~1.07x the raw bytes where the per-block width buckets were ~3.6x on
   log-shaped data (512-byte bucket for ~140-byte rows), which divides HBM
   footprint, pin-upload time, and scan traffic by the same ~3.4x.
-- The kernel emits per-CHUNK hit bits; a hit in chunk c means a match
+- The scan emits per-CHUNK hit bits; a hit in chunk c means a match
   starting somewhere in its payload, so the candidate rows are every row
   overlapping bytes [c*480, c*480+480+len-1) — the same span-overlap
   marking rule as the host scanner (bs_scan_candidates / scan.py), made
@@ -29,9 +29,8 @@ gathering any subset):
   combiner (the same design as the probe-launch batcher in bloom/bank.py):
   the leader launches the resident stream once with the UNION of pending
   queries' needles and every waiter slices out its blocks' chunk spans —
-  so a query touching 40 pinned blocks costs ~1 launch, not 40 (launch
-  round-trips dominate through remote-TPU tunnels and still cost tens of
-  µs locally).
+  so a query touching 40 pinned blocks costs ~1 launch, not 40 (each
+  launch pays dispatch plus a device-to-host transfer).
 
 Conservative-by-construction like scan.py: rows whose bytes can't prove
 needle absence (non-ASCII, \\uXXXX / \\/ escapes) are always-candidates,
@@ -56,9 +55,9 @@ from . import native as _native
 
 logger = logging.getLogger("bloomsearch_tpu.rowcache")
 
-# Stream chunk geometry: 512-byte physical rows (128 packed int32 lanes, the
-# SWAR kernel's exact lane tile); the last MAX_NEEDLE bytes of each chunk
-# duplicate the next chunk's head so windows never straddle a chunk.
+# Stream chunk geometry: 512-byte physical rows (128 packed int32 words);
+# the last MAX_NEEDLE bytes of each chunk duplicate the next chunk's head so
+# windows never straddle a chunk.
 CHUNK_BYTES = 512
 MAX_NEEDLE = 32  # longer needles fall back to always-candidate
 STREAM_STRIDE = CHUNK_BYTES - MAX_NEEDLE  # payload bytes per chunk (480)
@@ -114,6 +113,14 @@ def _round_up_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _needle_buckets() -> tuple[int, ...]:
+    """Dense-launch needle counts (pow2 up to MAX_SCAN_NEEDLES): each is its
+    own compiled program, and warmup compiles them all."""
+    from .stream_scan import MAX_SCAN_NEEDLES
+
+    return tuple(1 << i for i in range(MAX_SCAN_NEEDLES.bit_length()))
 
 
 def _unpack_bit_range(raw_u8: np.ndarray, start: int, n: int) -> np.ndarray:
@@ -218,90 +225,47 @@ def _device_scan_fn(mesh):
     import jax
     import jax.numpy as jnp
 
-    def _scan_matrix(rows32, needles_padded, needle_lens, *,
-                     n_real, max_words, use_pallas, interpret):
-        """Core dispatch: SWAR kernel on TPU, sliding windows elsewhere.
-        -> packed uint32[n_real, G/32] per-CHUNK hit bitmap."""
-        if use_pallas:
-            from .bloom.pallas_kernels import byte_scan_pallas_swar
+    from .stream_scan import scan_stream
 
-            return byte_scan_pallas_swar(
-                rows32, needles_padded, needle_lens,
-                n_real=n_real, max_words=max_words,
-                stream_stride=STREAM_STRIDE, interpret=interpret,
-            )
-        # XLA fallback (non-TPU platforms): unpack to bytes and run the
-        # sliding-window formulation over each chunk's payload starts.
-        G, P4 = rows32.shape
-        w = rows32.astype(jnp.uint32)  # bit-identical (mod 2^32)
-        b = jnp.stack(
-            [(w >> jnp.uint32(8 * i)) & jnp.uint32(0xFF) for i in range(4)],
-            axis=-1,
-        ).astype(jnp.uint8)
-        rows2d = b.reshape(G, P4 * 4)
-        W = STREAM_STRIDE  # valid starts: the payload region, len-independent
-        acc = jnp.ones((n_real, G, W), dtype=bool)
-        for l in range(MAX_NEEDLE):
-            window = jax.lax.dynamic_slice_in_dim(rows2d, l, W, axis=1)  # [G, W]
-            cmp = (
-                window[None, :, :].astype(jnp.int32)
-                == needles_padded[:n_real, l, None, None]
-            )
-            acc = acc & jnp.where((l < needle_lens[:n_real])[:, None, None], cmp, True)
-        hit = jnp.any(acc, axis=2)  # bool[n_real, G]
-        # Pack to bitmap words on-device (32x smaller device->host transfer;
-        # G is a multiple of the chunk unit).
-        from .bloom.pallas_kernels import pack_bitmap
+    # A start byte s counts iff it lies in the chunk's payload: s < STRIDE.
+    valid_words = STREAM_STRIDE // 4
 
-        return pack_bitmap(hit)
-
-    @functools.partial(
-        jax.jit,
-        static_argnames=("n_real", "max_words", "use_pallas", "interpret"),
-    )
+    @functools.partial(jax.jit, static_argnames=("impl", "n_real", "max_words"))
     def scan_all(rows32, needles_padded, needle_lens, *,
-                 n_real: int, max_words: int,
-                 use_pallas: bool, interpret: bool):
+                 impl: str, n_real: int, max_words: int):
         """rows32 int32[G, 128] (lowercased overlapped stream chunks, bytes
         packed little-endian 4-per-word), needles int32[N, MAX_NEEDLE] byte
         values, lens int32[N] -> packed uint32[n_real, G/32] hit bitmap over
         EVERY resident chunk.
 
-        Scan-all, not gather-then-scan: XLA's row gather measures ~1.3-4
-        GB/s on v5e while the SWAR kernel streams the resident matrix at
-        VPU speed, and the full-residency bitmap is cacheable per needle.
-        The program compiles once per (cap, N bucket, word bucket),
-        independent of which chunks a query asks for. On a mesh each chip
-        scans its own chunk shard (parallel.mesh.sharded_scan_all_rows —
-        overlap bytes are duplicated into each chunk at pack time, so shard
-        boundaries need no halo exchange).
+        Scan-all, not gather-then-scan: the full-residency bitmap is
+        cacheable per needle, and the program compiles once per (cap, N
+        bucket, word bucket), independent of which chunks a query asks
+        for. On a mesh each device scans its own chunk shard
+        (parallel.mesh.sharded_scan_all_rows — overlap bytes are duplicated
+        into each chunk at pack time, so shard boundaries need no halo
+        exchange).
         """
-        if use_pallas and mesh is not None:
+        if mesh is not None:
             from .parallel.mesh import sharded_scan_all_rows
 
             return sharded_scan_all_rows(
-                mesh, rows32, needles_padded, needle_lens,
-                n_real=n_real, max_words=max_words,
-                stream_stride=STREAM_STRIDE, interpret=interpret,
+                mesh, rows32, needles_padded, needle_lens, impl=impl,
+                n_real=n_real, max_words=max_words, valid_words=valid_words,
             )
-        return _scan_matrix(
-            rows32, needles_padded, needle_lens,
-            n_real=n_real, max_words=max_words,
-            use_pallas=use_pallas, interpret=interpret,
+        return scan_stream(
+            rows32, needles_padded, needle_lens, impl=impl,
+            n_real=n_real, max_words=max_words, valid_words=valid_words,
         )
 
     @functools.partial(
-        jax.jit,
-        static_argnames=(
-            "n_real", "max_words", "seg_chunks", "use_pallas", "interpret"
-        ),
+        jax.jit, static_argnames=("impl", "n_real", "max_words", "seg_chunks")
     )
     def scan_segments(rows32, seg_starts, needles_padded, needle_lens, *,
-                      n_real: int, max_words: int, seg_chunks: int,
-                      use_pallas: bool, interpret: bool):
+                      impl: str, n_real: int, max_words: int, seg_chunks: int):
         """Slice `len(seg_starts)` contiguous chunk ranges of seg_chunks
-        each out of the stream and scan only those -> packed
-        uint32[n_real, n_segs*seg_chunks/32].
+        each out of the stream and scan only those (with the same scan as
+        scan_all) -> packed uint32[n_real, n_segs*seg_chunks/32].
 
         The sparse-request path: when a query's blocks cover a small
         fraction of residency (needle queries at reference scale ask for 3
@@ -315,12 +279,15 @@ def _device_scan_fn(mesh):
             for s in range(seg_starts.shape[0])
         ]
         sub = jnp.concatenate(parts, axis=0)
-        return _scan_matrix(
-            sub, needles_padded, needle_lens,
-            n_real=n_real, max_words=max_words,
-            use_pallas=use_pallas, interpret=interpret,
+        return scan_stream(
+            sub, needles_padded, needle_lens, impl=impl,
+            n_real=n_real, max_words=max_words, valid_words=valid_words,
         )
 
+    if mesh is not None:
+        from .parallel.mesh import serialized_launch
+
+        scan_all = serialized_launch(scan_all)  # a mesh scan gathers across devices
     return scan_all, scan_segments
 
 
@@ -460,9 +427,9 @@ class DeviceRowCache:
         # the byte budget between the stream and the shadows; shadow-free
         # pins retain only offset/length arrays (a few % of raw).
         self.host_shadow = bool(host_shadow)
-        # Multi-chip serving: the stream matrix shards its CHUNK axis over
+        # Multi-device serving: the stream matrix shards its CHUNK axis over
         # a 1-D mesh (same auto policy as the filter superbanks) — pinned
-        # capacity and scan compute scale linearly in chips.
+        # capacity and scan compute scale linearly in devices.
         n_visible = len(jax.devices())
         want = n_visible if mesh_devices is None else mesh_devices
         if want > 1:
@@ -477,8 +444,8 @@ class DeviceRowCache:
             from .parallel.mesh import default_mesh
 
             self.mesh = default_mesh(n_devices=want)
-            # 512-chunk kernel tile x even shard split: every local shard
-            # of the stream matrix is tileable by the SWAR scan kernel.
+            # 512-chunk unit x even shard split: every local shard holds
+            # whole scan tiles and whole bitmap words.
             self._chunk_unit = 512 * want
         else:
             self.mesh = None
@@ -506,19 +473,17 @@ class DeviceRowCache:
         # programs) across arbitrary pin/evict churn.
         self._reserved_cap = 0
         self._scan, self._scan_segments = _device_scan_fn(self.mesh)
-        # On TPU the SWAR byte-scan kernel is the production path (the
-        # byte-per-lane predecessor lost to XLA fusion; the packed-word
-        # rewrite + scan-all wins — see docs/PERFORMANCE.md). Non-TPU
-        # platforms use the XLA sliding-window fallback; CPU tests exercise
-        # the kernel via pallas_interpret.
-        self.use_pallas = jax.default_backend() == "tpu"
-        self.pallas_interpret = False
+        from . import route
+
+        # Which stream scan runs here (stream_scan.scan_stream's ``impl``).
+        self.scan_impl = route.scan_impl(route.platform())
         # Version-keyed needle-bitmap cache (scan-all bitmaps outlive the
         # query that computed them); benchmarks disable this to measure the
         # uncached scan path.
         self.needle_cache_enabled = True
         self.launches = 0  # observability
         self.scan_requests = 0
+        self.aot_failures = 0  # precompile shapes that failed to compile
         self.pins = 0        # blocks pinned (incl. re-pins after eviction)
         self.evictions = 0   # blocks evicted for capacity (not invalidation)
         self.compactions = 0 # stream compaction passes
@@ -553,6 +518,7 @@ class DeviceRowCache:
             "host_bytes": host,
             "pinned_blocks": pinned,
             "scan_launches": self.launches,
+            "scan_aot_failures": self.aot_failures,
             "scan_requests": self.scan_requests,
             "pins": self.pins,
             "evictions": self.evictions,
@@ -801,7 +767,7 @@ class DeviceRowCache:
             )
 
         # Pack 4 bytes per int32 word, little-endian (what the SWAR scan
-        # kernel and its host-computed pattern words assume). A pure
+        # and its pattern words assume). A pure
         # reinterpret on little-endian hosts.
         if sys.byteorder == "little":
             packed = chunks.view(np.int32)
@@ -870,7 +836,7 @@ class DeviceRowCache:
                 # every compiled scan program; unreserved: eviction keeps
                 # LIVE chunks under budget but compaction only fires at
                 # dead*2 >= used, so growth-past-budget would let the
-                # PHYSICAL matrix reach ~2x capacity_bytes and OOM a chip
+                # PHYSICAL matrix reach ~2x capacity_bytes and OOM a device
                 # sized to the budget). Evict LRU blocks until the LIVE
                 # chunks fit, then force-compact — the matrix keeps its
                 # shape, only its contents rearrange. This is the steady
@@ -909,7 +875,7 @@ class DeviceRowCache:
                 # unless this single pin genuinely needs more: doubling
                 # overshoot otherwise parks cap at up to ~2x capacity_bytes
                 # (eviction bounds LIVE chunks, not allocation) and OOMs a
-                # chip sized to the budget.
+                # device sized to the budget.
                 with self._lock:
                     host_bytes = sum(
                         blk.host_nbytes for blk in self._blocks.values()
@@ -936,8 +902,8 @@ class DeviceRowCache:
                 matrix_private = True
             if n_chunks > 0:
                 # Piecewise pow2 upload: the update program compiles per
-                # update SHAPE, and one-compile-per-distinct-block-size was
-                # ~110 s of a reference-scale warmup (240 blocks x ~0.45 s).
+                # update SHAPE, and one compile per distinct block size
+                # would dominate a reference-scale warmup (240 blocks).
                 # Greedy pow2 pieces >= 512 chunks bound the shape set to
                 # ~6 programs ever; the final piece zero-pads into
                 # not-yet-used space (never part of any live segment, and
@@ -1034,52 +1000,49 @@ class DeviceRowCache:
         few-core machines (the engine passes its queries-in-flight gate).
 
         Compiles held the scan launch lock for their full multi-second
-        duration, so a query arriving mid-warmup starved behind them (the
-        72.8 s during-warmup stall in BENCH_r04). AOT populates jax's
+        duration, so a query arriving mid-warmup starved behind them. AOT
+        populates jax's
         persistent compilation cache first — the locked warm executions
-        that follow (and any query-path launch) then deserialize in
-        ~0.1-0.5 s instead of compiling for seconds. Shape enumeration
-        mirrors _launch_bucket_scan: dense scan-all at n_real {1,2,4,8} per
-        word bucket; sparse scan_segments (single-device only) at n_segs
-        {1,2,4} with the needle axis at its fixed sparse capacity (8) and
+        that follow (and any query-path launch) then deserialize instead of
+        compiling. Shape enumeration
+        mirrors _launch_bucket_scan: dense scan-all at every
+        _needle_buckets() n_real per word bucket; sparse scan_segments
+        (single-device only) at n_segs {1,2,4} with the needle axis at its
+        fixed sparse capacity (MAX_SCAN_NEEDLES) and
         seg_chunks derived from ``blocks`` exactly like a live launch.
-        Best-effort: a failed shape is skipped (the execution pass still
-        compiles it, just under the lock). Returns programs compiled.
+        A failed shape is counted in ``aot_failures`` and logged, then
+        skipped (the execution pass still compiles it, just under the
+        lock). Returns programs compiled.
         """
         bucket = self._bucket
         with self._lock:
             matrix = bucket.matrix
         if matrix is None:
             return 0
-        from .bloom.pallas_kernels import SCAN_WORD_BUCKETS
+        from .stream_scan import MAX_SCAN_NEEDLES, SCAN_WORD_BUCKETS
 
         phys_cap = int(matrix.shape[0])
-        use_pallas = self.use_pallas or self.pallas_interpret
         max_chunks = max((b.num_chunks for b in blocks), default=1)
         seg_chunks = max(_round_up_pow2(max(max_chunks, 1)), 512)
         jnp = self._jnp
         compiled = 0
         for wb in SCAN_WORD_BUCKETS:
-            for n_bucket in (1, 2, 4, 8):
-                padded = jnp.zeros((max(8, n_bucket), MAX_NEEDLE), jnp.int32)
-                lens = jnp.zeros(max(8, n_bucket), jnp.int32)
-                common = dict(
-                    n_real=n_bucket,
-                    max_words=wb,
-                    use_pallas=use_pallas,
-                    interpret=self.pallas_interpret,
-                )
+            padded = jnp.zeros((MAX_SCAN_NEEDLES, MAX_NEEDLE), jnp.int32)
+            lens = jnp.zeros(MAX_SCAN_NEEDLES, jnp.int32)
+            for n_bucket in _needle_buckets():
+                common = dict(n_real=n_bucket, max_words=wb, impl=self.scan_impl)
                 if yield_to is not None:
                     yield_to()
                 try:
                     self._scan.lower(matrix, padded, lens, **common).compile()
                     compiled += 1
                 except Exception:
-                    logger.debug("scan AOT failed (dense %s)", common,
-                                 exc_info=True)
+                    self.aot_failures += 1
+                    logger.warning("scan AOT failed (dense %s)", common,
+                                   exc_info=True)
                 if (
                     self.mesh is None
-                    and n_bucket == 8
+                    and n_bucket == MAX_SCAN_NEEDLES
                     and seg_chunks <= phys_cap
                 ):
                     for n_segs in (1, 2, 4):
@@ -1095,7 +1058,8 @@ class DeviceRowCache:
                             ).compile()
                             compiled += 1
                         except Exception:
-                            logger.debug(
+                            self.aot_failures += 1
+                            logger.warning(
                                 "scan AOT failed (sparse %d)", n_segs,
                                 exc_info=True,
                             )
@@ -1239,7 +1203,7 @@ class DeviceRowCache:
         #    requested chunk segments on-device and scan those; both the
         #    scanned bytes and the returned bitmap shrink by the sparsity
         #    factor.
-        from .bloom.pallas_kernels import MAX_SCAN_NEEDLES, scan_word_bucket
+        from .stream_scan import MAX_SCAN_NEEDLES, scan_word_bucket
 
         phys_cap = int(matrix.shape[0])
         # Unique requested chunk ranges (chunk_start, n_chunks).
@@ -1252,7 +1216,7 @@ class DeviceRowCache:
             }
         )
         seg_chunks = _round_up_pow2(max((n for _, n in ranges), default=1))
-        seg_chunks = max(seg_chunks, 512)  # kernel chunk-tile multiple
+        seg_chunks = max(seg_chunks, 512)  # the chunk unit
         # Segment-count buckets (1/2/4): the slice program unrolls one
         # dynamic_slice per segment, so each distinct count would otherwise
         # be its own multi-second jit compile; padding duplicates segment 0
@@ -1260,9 +1224,8 @@ class DeviceRowCache:
         # precompiles exactly buckets {1, 2, 4}, so no query shape ever
         # jits at query time: single needle queries (1-4 blocks) stay
         # sparse, and bursts of coalesced concurrent requests fall through
-        # to the always-compiled dense scan-all (measured: a 16-query burst
-        # hit a fresh 3 s scan_segments compile for its n_segs=64 shape,
-        # then ran in 195 ms on the dense program).
+        # to the always-compiled dense scan-all instead of compiling a
+        # fresh scan_segments shape at query time.
         n_segs = _round_up_pow2(len(ranges)) if ranges else 0
         sparse = (
             self.mesh is None
@@ -1282,41 +1245,39 @@ class DeviceRowCache:
             starts_dev = jnp.asarray(starts)
         logical_chunks = n_segs * seg_chunks if sparse else phys_cap
 
-        chunk = MAX_SCAN_NEEDLES if self.use_pallas or self.pallas_interpret else 64
+        chunk = MAX_SCAN_NEEDLES
         fresh: dict[bytes, np.ndarray] = {}
         if missing:
             # Sort by length before chunking: each launch's word-loop bound
             # is its LONGEST needle, so grouping similar lengths keeps a
             # short-needle launch from paying a long needle's word bucket
-            # (the kernel is VPU-issue-bound in the word loop).
+            # (the scan's integer work grows with the word count).
             missing.sort(key=len)
             for base in range(0, len(missing), chunk):
                 part = missing[base : base + chunk]
                 max_words = scan_word_bucket(max(len(n) for n in part))
-                # >= 8: Mosaic sublane tiling on the kernel's needle axis.
-                n_bucket = max(8, _round_up_pow2(len(part)))
-                padded = np.zeros((n_bucket, MAX_NEEDLE), dtype=np.int32)
-                lens = np.zeros(n_bucket, dtype=np.int32)
+                # One needle-array shape per launch; n_real (static) picks
+                # how many rows the program scans.
+                padded = np.zeros((MAX_SCAN_NEEDLES, MAX_NEEDLE), dtype=np.int32)
+                lens = np.zeros(MAX_SCAN_NEEDLES, dtype=np.int32)
                 for row, needle in enumerate(part):
                     padded[row, : len(needle)] = np.frombuffer(needle, dtype=np.uint8)
                     lens[row] = len(needle)
                 # n_real is a static of the scan program, and every distinct
-                # needle count would be its own multi-second compile (a
-                # coalesced concurrent burst's 3-needle union measured a
-                # fresh ~3 s jit). Padded rows carry zero masks — they match
+                # needle count would be its own compile (a coalesced burst's
+                # odd-sized union would jit at query time). Padded rows carry zero masks — they match
                 # everywhere and are sliced off below. SPARSE launches scan
-                # so few bytes that the kernel's per-needle op cost is
+                # so few bytes that the scan's per-needle cost is
                 # negligible, so they always use the full needle capacity —
                 # ONE program shape, exactly what warmup compiles. DENSE
-                # launches pay real VPU time per needle row, so they use
-                # pow2 buckets (warmup compiles 1/2/4/8).
+                # launches pay real scan time per needle row, so they use
+                # pow2 buckets (warmup compiles every _needle_buckets()).
                 common = dict(
                     n_real=(
-                        n_bucket if sparse else _round_up_pow2(len(part))
+                        MAX_SCAN_NEEDLES if sparse else _round_up_pow2(len(part))
                     ),
                     max_words=max_words,
-                    use_pallas=self.use_pallas or self.pallas_interpret,
-                    interpret=self.pallas_interpret,
+                    impl=self.scan_impl,
                 )
                 self.launches += 1  # one per DEVICE launch, not per pass
                 if sparse:

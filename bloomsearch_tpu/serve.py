@@ -5,11 +5,12 @@ and (optionally) announces it in a shared peer registry so coordinators
 discover it (parallel/discovery.py). The minimal deployable unit of the
 scatter/gather story:
 
-    # peer A and B, one shared dataset on a shared filesystem
-    python -m bloomsearch_tpu.serve --object-dir /mnt/bucket --port 7801 \\
-        --registry --peer-id a --capacity 2
-    python -m bloomsearch_tpu.serve --object-dir /mnt/bucket --port 7802 \\
-        --registry --peer-id b
+    # peer A and B, one shared dataset on a shared filesystem; each server
+    # process takes its own card
+    CUDA_VISIBLE_DEVICES=0 python -m bloomsearch_tpu.serve \\
+        --object-dir /mnt/bucket --port 7801 --registry --peer-id a --capacity 2
+    CUDA_VISIBLE_DEVICES=1 python -m bloomsearch_tpu.serve \\
+        --object-dir /mnt/bucket --port 7802 --registry --peer-id b
 
     # coordinator
     from bloomsearch_tpu import LocalDirObjectStore, ObjectStoreMetaStore
@@ -20,6 +21,11 @@ scatter/gather story:
 
 ``--dir`` serves a plain FileSystemDataStore dataset instead (no registry —
 peers then get listed explicitly via RemoteQueryPeer addresses).
+
+One server process per card: JAX reserves most of a card's memory when a
+process first uses it, so two servers on one host must each see a different
+card (``CUDA_VISIBLE_DEVICES``); a second process on the same card fails for
+want of memory.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Bloom math + hashing + host filter semantics.
 
-Property coverage the TPU rebuild must guarantee (SURVEY.md §6 north star):
+Property coverage the device rebuild must guarantee (SURVEY.md §6 north star):
 zero false negatives, empirical FPR ≈ configured p at estimated (m, k), and
 OR-merge correctness. Also cross-checks native vs pure-Python murmur3/CRC32C.
 """

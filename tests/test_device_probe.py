@@ -1,8 +1,8 @@
 """Device probe backend: superbanks, kernel parity, cache behavior.
 
 Runs on the CPU backend (conftest forces JAX_PLATFORMS=cpu with 8 virtual
-devices); the Pallas kernel is validated in interpreter mode against the host
-numpy probe, which is the semantic spec.
+devices); the XLA probe programs are validated against the host numpy probe,
+which is the semantic spec.
 """
 
 import numpy as np
@@ -50,12 +50,10 @@ def make_terms(*exprs):
 class TestBackendParity:
     @staticmethod
     def to_bank2d(bank: np.ndarray, C: int = 128) -> np.ndarray:
-        """Pad a [3, W, B] host bank into the kernel's 2D layout [R8, C]."""
-        from bloomsearch_tpu.bloom.pallas_kernels import round_up_rows
-
+        """Pad a [3, W, B] host bank into the probe's 2D layout [3W, C]."""
         _, W, B = bank.shape
-        out = np.zeros((round_up_rows(3 * W), C), dtype=np.uint32)
-        out[: 3 * W, :B] = bank.reshape(3 * W, B)
+        out = np.zeros((3 * W, C), dtype=np.uint32)
+        out[:, :B] = bank.reshape(3 * W, B)
         return out
 
     @staticmethod
@@ -67,7 +65,7 @@ class TestBackendParity:
     def test_xla_matches_host(self):
         import jax.numpy as jnp
 
-        from bloomsearch_tpu.bloom.pallas_kernels import probe_bank_xla
+        from bloomsearch_tpu.bloom.device_probe import probe_bank_xla
 
         bank = make_bank(PARAMS, BLOCK_KEYS)
         _, terms = make_terms(
@@ -86,62 +84,79 @@ class TestBackendParity:
         np.testing.assert_array_equal(expected, actual)
 
     def test_pallas_multi_tile_grid_matches_host(self):
-        """C > c_tile: the output block (0, c) spans all T rows of a column
-        tile, so the grid must visit it consecutively (column tiles
-        OUTERMOST). The old (T, C//c_tile, K) order revisited each tile
-        once per term with other tiles in between — Mosaic does not reload
-        flushed output blocks, so real-TPU multi-tile launches write
-        garbage rows. Interpret mode can't reproduce the pipelining hazard,
-        but locks the reordered grid's semantics."""
+        """A bank many 128-column units wide, random bits: every program of
+        the fused ladder (full bitmap, flat-AND reduce, CNF clauses) must
+        equal the per-(term, probe) bit definition, padding terms included."""
         import jax.numpy as jnp
 
-        from bloomsearch_tpu.bloom.pallas_kernels import probe_bank_pallas_tk
+        from bloomsearch_tpu.bloom.device_probe import (
+            probe_and_pack,
+            probe_clauses_pack,
+            probe_reduce_and_pack,
+        )
+        from bloomsearch_tpu.parallel import unpack_bitmap
 
         rng = np.random.default_rng(7)
-        R, C, T, K = 16, 512, 3, 4
+        R, C, T, K = 16, 1024, 4, 4
+        # Dense random bits AND-ed over K probes survive ~1/16 of columns.
         bank2d = rng.integers(0, 2**32, size=(R, C), dtype=np.uint32)
         flat_rows = rng.integers(0, R, size=T * K).astype(np.int32)
         shifts = rng.integers(0, 32, size=T * K).astype(np.int32)
-        got = (
-            np.asarray(
-                probe_bank_pallas_tk(
-                    jnp.asarray(bank2d), jnp.asarray(flat_rows),
-                    jnp.asarray(shifts), T, K, c_tile=128, interpret=True,
-                )
-            )
-            != 0
-        )
         want = np.ones((T, C), dtype=bool)
         for t in range(T):
             for j in range(K):
                 p = t * K + j
                 bits = (bank2d[flat_rows[p]] >> np.uint32(shifts[p])) & 1
                 want[t] &= bits.astype(bool)
+        args = (jnp.asarray(bank2d), jnp.asarray(flat_rows), jnp.asarray(shifts), T, K)
+
+        got = unpack_bitmap(np.asarray(probe_and_pack(*args)), C)
         np.testing.assert_array_equal(got, want)
 
+        mask = np.array([True, True, True, False])  # last term is padding
+        got = unpack_bitmap(
+            np.asarray(probe_reduce_and_pack(*args, jnp.asarray(mask))), C
+        )
+        np.testing.assert_array_equal(got[0], want[:3].all(axis=0))
+
+        # (t0 OR t1) AND t2 for member 0; t3 alone for member 1.
+        clause = np.zeros((16, T), np.float32)
+        clause[0, [0, 1]] = 1
+        clause[1, 2] = 1
+        clause[2, 3] = 1
+        member = np.zeros((16, 16), np.float32)
+        member[0, [0, 1]] = 1
+        member[1, 2] = 1
+        got = unpack_bitmap(
+            np.asarray(
+                probe_clauses_pack(*args, jnp.asarray(clause), jnp.asarray(member))
+            ),
+            C,
+        )
+        np.testing.assert_array_equal(got[0], (want[0] | want[1]) & want[2])
+        np.testing.assert_array_equal(got[1], want[3])
+        assert got[2:].all(), "padding members (no clauses) survive everywhere"
+
     def test_pallas_interpret_matches_host(self):
+        """Packed device probe of a real filter bank equals the host numpy
+        probe; padded (zero) columns never match."""
         import jax.numpy as jnp
 
-        from bloomsearch_tpu.bloom.pallas_kernels import probe_bank_pallas_tk
+        from bloomsearch_tpu.bloom.device_probe import probe_and_pack
+        from bloomsearch_tpu.parallel import unpack_bitmap
 
         bank = make_bank(PARAMS, BLOCK_KEYS)
         _, terms = make_terms(("token", "error"), ("field", "level"))
         T = len(terms)
         bank2d = self.to_bank2d(bank)
         flat_rows, shifts = self.flat_probes(terms, bank.shape[1])
-        match = probe_bank_pallas_tk(
-            jnp.asarray(bank2d),
-            jnp.asarray(flat_rows),
-            jnp.asarray(shifts),
-            T,
-            PARAMS.k,
-            interpret=True,
+        packed = probe_and_pack(
+            jnp.asarray(bank2d), jnp.asarray(flat_rows), jnp.asarray(shifts), T, PARAMS.k
         )
-        actual = np.asarray(match)[:, : bank.shape[2]] != 0
+        match = unpack_bitmap(np.asarray(packed), bank2d.shape[1])
         expected = probe_bank_host(bank, terms, PARAMS.m_bits, PARAMS.k)
-        np.testing.assert_array_equal(expected, actual)
-        # Padded (zero) columns can never match.
-        assert not np.asarray(match)[:, bank.shape[2] :].any()
+        np.testing.assert_array_equal(expected, match[:, : bank.shape[2]])
+        assert not match[:, bank.shape[2] :].any()
 
 
 class TestSuperbank:

@@ -414,7 +414,7 @@ class TestConditionedTTL:
 
     def test_expiry_rebuilds_file_level_filters(self, tmp_path):
         """A key present only in expired blocks must stop matching the merged
-        file's file-level filters (VERDICT r3 item 8): ORing stale source
+        file's file-level filters: ORing stale source
         filters would drag FPR up with every expiry-merge generation."""
         pred = bs.prefilter_expiry(bs.partition(bs.partition_equals("cold")))
         engine, store = make_engine(

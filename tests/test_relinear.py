@@ -274,7 +274,7 @@ class TestBuildSafeMatcher:
 class TestEngineCompletesPathologicalQuery:
     def test_evil_regex_query_completes(self, tmp_path):
         """Reference behavior: RE2 runs (a+)+$ linearly; a crafted row must
-        not wedge a block worker (VERDICT r3 item 7)."""
+        not wedge a block worker."""
         store = FileSystemDataStore(str(tmp_path / "data"))
         engine = BloomSearchEngine(
             BloomSearchEngineConfig(row_data_compression="none"), store, store
@@ -313,7 +313,7 @@ class TestFlagAndFallbackRouting:
         # 280-313, bloom_tree_engine_test.go regex cases) plus RE2-style
         # shapes must run on the screen-cleared re path or the linear VM —
         # NEVER the budgeted fallback, which is the only path that can
-        # error where the reference completes (VERDICT r4 item 9).
+        # error where the reference completes.
         from bloomsearch_tpu.relinear import matcher_route
 
         reference_patterns = [

@@ -22,6 +22,7 @@ from bloomsearch_tpu.rowcache import (
     STREAM_STRIDE,
     DeviceRowCache,
     _pack_stream_numpy,
+    _round_up,
 )
 from bloomsearch_tpu.scan import split_rows_arrays
 
@@ -236,7 +237,7 @@ class TestEngineServingMode:
 
 class TestShadowFreeServing:
     """row_cache_host_shadow: candidate rows re-read from the store instead
-    of a decompressed host copy per pinned block (VERDICT r3 item 3)."""
+    of a decompressed host copy per pinned block."""
 
     def _run_engine(self, tmp_path, name, codec, shadow, n_rows=4000):
         store = bs.FileSystemDataStore(str(tmp_path / name))
@@ -528,11 +529,71 @@ class TestStreamBucket:
         assert scan.all(), "stale block must be conservatively all-candidate"
 
 
+def _interpret_triton(monkeypatch):
+    """Route impl="triton" through the Pallas interpreter (CPU has no
+    Triton compiler; the GPU always compiles the kernel)."""
+    import functools
+
+    from bloomsearch_tpu import stream_scan
+
+    monkeypatch.setattr(
+        stream_scan, "scan_triton",
+        functools.partial(stream_scan.scan_triton, interpret=True),
+    )
+
+
+SCAN_IMPLS = ["xla", "triton"]
+
+
+def _run_scan(impl, rows32, needles, *, valid_words, monkeypatch):
+    """Scan int32[G, 128] chunks for byte needles with one implementation
+    -> bool[len(needles), G] per-chunk hits."""
+    import jax.numpy as jnp
+
+    from bloomsearch_tpu.stream_scan import (
+        MAX_SCAN_NEEDLES,
+        scan_stream,
+        scan_word_bucket,
+    )
+
+    if impl == "triton":
+        _interpret_triton(monkeypatch)
+    G = rows32.shape[0]
+    out = []
+    for base in range(0, len(needles), MAX_SCAN_NEEDLES):
+        part = needles[base : base + MAX_SCAN_NEEDLES]
+        padded = np.zeros((MAX_SCAN_NEEDLES, MAX_NEEDLE), dtype=np.int32)
+        lens = np.zeros(MAX_SCAN_NEEDLES, dtype=np.int32)
+        for r, nd in enumerate(part):
+            padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
+            lens[r] = len(nd)
+        packed = np.asarray(
+            scan_stream(
+                jnp.asarray(rows32), jnp.asarray(padded), jnp.asarray(lens),
+                impl=impl, n_real=len(part),
+                max_words=scan_word_bucket(max(len(nd) for nd in part)),
+                valid_words=valid_words,
+            )
+        )
+        bits = np.unpackbits(packed.view(np.uint8), axis=1, bitorder="little")
+        out.append(bits[:, :G].astype(bool))
+    return np.concatenate(out, axis=0)
+
+
+def _byte_oracle(rows_u8: np.ndarray, needle: bytes, max_start: int) -> np.ndarray:
+    """bool[G]: chunk g holds ``needle`` at some start byte < max_start."""
+    out = np.zeros(rows_u8.shape[0], dtype=bool)
+    for g in range(rows_u8.shape[0]):
+        pos = rows_u8[g].tobytes().find(needle)
+        out[g] = 0 <= pos < max_start
+    return out
+
+
 class TestPallasByteScanParity:
-    def test_pallas_interpret_matches_xla_path(self):
-        """The production byte-scan kernel (interpret mode on CPU) must
-        match the XLA sliding-window path bit for bit, and both must match
-        the chunk-expansion oracle."""
+    def test_pallas_interpret_matches_xla_path(self, monkeypatch):
+        """The Triton-route scan kernel (Pallas interpreter on CPU) must
+        match the plain-jnp SWAR scan bit for bit through the row cache,
+        and both must match the chunk-expansion oracle."""
         rng = random.Random(11)
         words = ["Alpha", "beta", "GAMMA-7", "needle one", "Ka", "MiXeD"]
         rows = [
@@ -544,92 +605,66 @@ class TestPallasByteScanParity:
         needles = [b"alpha", b"gamma-7", b"needle one", b"absent", b"ka"]
 
         xla_cache = DeviceRowCache(64 << 20)
+        xla_cache.scan_impl = "xla"
         px = xla_cache.pin((b"f", 0), data, offsets, lengths)
         xla_scan = xla_cache.scan(px, needles)
 
-        pl_cache = DeviceRowCache(64 << 20)
-        pl_cache.pallas_interpret = True
-        pp = pl_cache.pin((b"f", 0), data, offsets, lengths)
-        pl_scan = pl_cache.scan(pp, needles)
+        _interpret_triton(monkeypatch)
+        tr_cache = DeviceRowCache(64 << 20)
+        tr_cache.scan_impl = "triton"
+        pt = tr_cache.pin((b"f", 0), data, offsets, lengths)
+        tr_scan = tr_cache.scan(pt, needles)
 
-        np.testing.assert_array_equal(xla_scan, pl_scan)
+        np.testing.assert_array_equal(xla_scan, tr_scan)
         for qi, nd in enumerate(needles):
             np.testing.assert_array_equal(
-                pl_scan[qi], chunk_oracle(data, offsets, lengths, nd),
+                tr_scan[qi], chunk_oracle(data, offsets, lengths, nd),
                 err_msg=repr(nd),
             )
 
 
 class TestSwarKernelFuzz:
-    def test_swar_alignments_lengths_and_high_bytes(self):
-        """Direct kernel fuzz vs a bytes-in oracle: every start alignment
-        mod 4, needle lengths 1..32 (the packed-word spans 1..9), bytes
-        >= 0x80 (sign bits in the int32 lanes), and matches flush against
-        the valid-start boundary."""
-        import jax.numpy as jnp
-
-        from bloomsearch_tpu.bloom.pallas_kernels import (
-            MAX_SCAN_NEEDLES,
-            byte_scan_pallas_swar,
-            scan_word_bucket,
-        )
-
+    @pytest.mark.parametrize("impl", SCAN_IMPLS)
+    def test_swar_alignments_lengths_and_high_bytes(self, impl, monkeypatch):
+        """Scan fuzz vs a bytes-in oracle: every start alignment mod 4,
+        needle lengths 1..32 (the packed-word spans 1..9), bytes >= 0x80
+        (sign bits in the int32 words), and matches flush against the
+        valid-start boundary."""
         rng = np.random.default_rng(7)
-        G, P = 512, 512
+        G, P = 128, CHUNK_BYTES
         rows = rng.integers(0, 256, size=(G, P), dtype=np.uint8)
         needles = []
         for ln in (1, 2, 3, 4, 5, 7, 8, 31, 32):
             nd = bytes(rng.integers(0, 256, size=ln, dtype=np.uint8))
             needles.append(nd)
         # Plant occurrences at every alignment and at the last legal start.
-        for i, nd in enumerate(needles):
+        for nd in needles:
             for a in range(4):
                 g = rng.integers(0, G)
-                s = int(rng.integers(0, (P - len(nd)) // 4)) * 4 + a
+                s = int(rng.integers(0, (STREAM_STRIDE - 4) // 4)) * 4 + a
                 rows[g, s : s + len(nd)] = np.frombuffer(nd, np.uint8)
             g = rng.integers(0, G)
-            rows[g, P - len(nd) :] = np.frombuffer(nd, np.uint8)
+            s = STREAM_STRIDE - 1
+            rows[g, s : s + len(nd)] = np.frombuffer(nd, np.uint8)
 
-        rows32 = rows.view(np.int32)  # little-endian test hosts
-        for base in range(0, len(needles), MAX_SCAN_NEEDLES):
-            part = needles[base : base + MAX_SCAN_NEEDLES]
-            n_pad = max(8, len(part))
-            padded = np.zeros((n_pad, MAX_NEEDLE), dtype=np.int32)
-            lens = np.zeros(n_pad, dtype=np.int32)
-            for r, nd in enumerate(part):
-                padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
-                lens[r] = len(nd)
-            packed = np.asarray(
-                byte_scan_pallas_swar(
-                    jnp.asarray(rows32), jnp.asarray(padded), jnp.asarray(lens),
-                    n_real=len(part),
-                    max_words=scan_word_bucket(max(len(nd) for nd in part)),
-                    interpret=True,
-                )
+        hits = _run_scan(
+            impl, rows.view(np.int32), needles,
+            valid_words=STREAM_STRIDE // 4, monkeypatch=monkeypatch,
+        )
+        for r, nd in enumerate(needles):
+            np.testing.assert_array_equal(
+                hits[r], _byte_oracle(rows, nd, STREAM_STRIDE), err_msg=repr(nd)
             )
-            bits = np.unpackbits(
-                packed.view(np.uint8), axis=1, bitorder="little"
-            ).astype(bool)
-            for r, nd in enumerate(part):
-                expect = np.array([nd in rows[g].tobytes() for g in range(G)])
-                np.testing.assert_array_equal(bits[r, :G], expect, err_msg=repr(nd))
 
-    def test_stream_stride_valid_start_boundary(self):
+    @pytest.mark.parametrize("impl", SCAN_IMPLS)
+    def test_stream_stride_valid_start_boundary(self, impl, monkeypatch):
         """Stream-chunk mode: matches STARTING in the payload region
         (< stride) hit; matches starting in the overlap tail belong to the
         next chunk and must NOT hit this one."""
-        import jax.numpy as jnp
-
-        from bloomsearch_tpu.bloom.pallas_kernels import (
-            byte_scan_pallas_swar,
-            scan_word_bucket,
-        )
-
         rng = np.random.default_rng(23)
-        G, P = 512, CHUNK_BYTES
+        G, P = 64, CHUNK_BYTES
         rows = rng.integers(97, 123, size=(G, P), dtype=np.uint8)
-        nd = b"XyZZy-needle"  # mixed case on purpose: kernel sees raw bytes
-        ndl = nd.lower()
+        ndl = b"xyzzy-needle"  # '-' is outside the random a-z alphabet
         # chunk 3: starts exactly at the last valid payload byte
         rows[3, STREAM_STRIDE - 1 : STREAM_STRIDE - 1 + len(ndl)] = np.frombuffer(
             ndl, np.uint8
@@ -641,84 +676,80 @@ class TestSwarKernelFuzz:
         # chunk 11: starts at payload byte 0
         rows[11, : len(ndl)] = np.frombuffer(ndl, np.uint8)
 
-        padded = np.zeros((8, MAX_NEEDLE), np.int32)
-        lens = np.zeros(8, np.int32)
-        padded[0, : len(ndl)] = np.frombuffer(ndl, np.uint8)
-        lens[0] = len(ndl)
-        out = np.asarray(
-            byte_scan_pallas_swar(
-                jnp.asarray(rows.view(np.int32)), jnp.asarray(padded),
-                jnp.asarray(lens),
-                n_real=1, max_words=scan_word_bucket(len(ndl)),
-                stream_stride=STREAM_STRIDE, interpret=True,
-            )
+        hits = _run_scan(
+            impl, rows.view(np.int32), [ndl],
+            valid_words=STREAM_STRIDE // 4, monkeypatch=monkeypatch,
         )
-        bits = np.unpackbits(out.view(np.uint8), axis=1, bitorder="little")[0]
         expect = np.zeros(G, dtype=bool)
         expect[3] = expect[11] = True
-        # Random lowercase body may contain accidental needle bytes? The
-        # needle has a '-' (not in the random a-z alphabet) so no.
-        np.testing.assert_array_equal(bits[:G].astype(bool), expect)
+        np.testing.assert_array_equal(hits[0], expect)
 
 
-class TestSlotPacking:
-    @pytest.mark.parametrize("slots,width", [(2, 256), (4, 128)])
-    def test_slotted_kernel_matches_oracle(self, slots, width):
-        """Slot mode (kept for kernel generality): narrow rows packed
-        `slots`-per-physical-row must scan exactly — no cross-slot matches,
-        per-slot valid bounds, logical row order."""
-        import jax.numpy as jnp
+class TestScanWordBuckets:
+    @pytest.mark.parametrize("wb", [2, 4, 6, 9])
+    @pytest.mark.parametrize("impl", SCAN_IMPLS)
+    def test_longest_needle_of_each_word_bucket(self, impl, wb, monkeypatch):
+        """A launch's word loop stops at its bucket: the longest needle a
+        bucket admits must still match at all four alignments (a span of
+        exactly ``wb`` words at alignment 3), and one byte off at its last
+        position must not."""
+        from bloomsearch_tpu.stream_scan import scan_word_bucket
 
-        from bloomsearch_tpu.bloom.pallas_kernels import (
-            byte_scan_pallas_swar,
-            scan_word_bucket,
+        ln = min(4 * wb - 3, MAX_NEEDLE)
+        assert scan_word_bucket(ln) == wb
+        rng = np.random.default_rng(100 + wb)
+        G = 64
+        rows = rng.integers(97, 123, size=(G, CHUNK_BYTES), dtype=np.uint8)
+        nd = bytes([0xC3, ord("-")]) + bytes(rng.integers(97, 123, size=ln - 2, dtype=np.uint8))
+        near = nd[:-1] + bytes([nd[-1] ^ 0x01])
+        for a in range(4):
+            s = 40 * (a + 1) + a
+            rows[a * 5, s : s + ln] = np.frombuffer(nd, np.uint8)
+            rows[a * 5 + 1, s : s + ln] = np.frombuffer(near, np.uint8)
+        hits = _run_scan(
+            impl, rows.view(np.int32), [nd],
+            valid_words=STREAM_STRIDE // 4, monkeypatch=monkeypatch,
         )
+        expect = _byte_oracle(rows, nd, STREAM_STRIDE)
+        assert expect.sum() == 4
+        np.testing.assert_array_equal(hits[0], expect)
 
-        rng = np.random.default_rng(13 + slots)
-        phys = 512
-        n_logical = phys * slots
-        rows = rng.integers(97, 123, size=(n_logical, width), dtype=np.uint8)
-        rows[:, width - MAX_NEEDLE :] = 0  # tail headroom
-        needles = [b"qq", b"abcdefg", bytes(rng.integers(97, 123, size=13, dtype=np.uint8))]
-        # Plant: inside rows, flush at the last legal start, and a decoy
-        # SPLIT across a slot boundary (last bytes of row 4k+s, first of
-        # the next) which must NOT match.
-        for nd in needles:
-            for _ in range(8):
-                g = int(rng.integers(0, n_logical))
-                s = int(rng.integers(0, width - MAX_NEEDLE - len(nd)))
-                rows[g, s : s + len(nd)] = np.frombuffer(nd, np.uint8)
-            g = int(rng.integers(0, n_logical))
-            rows[g, width - MAX_NEEDLE - len(nd) : width - MAX_NEEDLE] = np.frombuffer(nd, np.uint8)
 
-        packed = rows.reshape(phys, width * slots // 4, 4)
-        packed = (
-            packed[..., 0].astype(np.int64)
-            | (packed[..., 1].astype(np.int64) << 8)
-            | (packed[..., 2].astype(np.int64) << 16)
-            | (packed[..., 3].astype(np.int64) << 24)
-        ).astype(np.uint32).view(np.int32)
-
-        N = 8
-        padded = np.zeros((N, MAX_NEEDLE), np.int32)
-        lens = np.zeros(N, np.int32)
-        for r, nd in enumerate(needles):
-            padded[r, : len(nd)] = np.frombuffer(nd, np.uint8)
-            lens[r] = len(nd)
-        out = np.asarray(
-            byte_scan_pallas_swar(
-                jnp.asarray(packed), jnp.asarray(padded), jnp.asarray(lens),
-                n_real=len(needles),
-                max_words=scan_word_bucket(max(len(nd) for nd in needles)),
-                slots=slots, interpret=True,
-            )
+class TestStreamChunkBoundary:
+    @pytest.mark.parametrize("impl", SCAN_IMPLS)
+    def test_high_bytes_at_chunk_boundary(self, impl, monkeypatch):
+        """Needles of bytes >= 0x80 cut from a packed stream at starts
+        around the chunk seam (stride - 1, stride, stride + 1): each must
+        hit exactly the chunks whose payload holds an occurrence's start —
+        the overlap bytes duplicated from the next chunk never double-count
+        and never hide a match."""
+        rng = np.random.default_rng(5)
+        n = 40 * STREAM_STRIDE
+        data = bytes(rng.integers(0x80, 0x100, size=n, dtype=np.uint8))
+        chunks, _ = _pack_stream_numpy(
+            data, np.array([0], np.int64), np.array([n], np.int64)
         )
-        bits = np.unpackbits(out.view(np.uint8), axis=1, bitorder="little")
+        G = _round_up(chunks.shape[0], 32)
+        rows = np.zeros((G, CHUNK_BYTES), dtype=np.uint8)
+        rows[: chunks.shape[0]] = chunks
+        needles = []
+        for seam in (3, 9, 17):
+            for d in (-1, 0, 1):
+                s = seam * STREAM_STRIDE + d
+                needles.append(data[s : s + 7 + seam])
+        hits = _run_scan(
+            impl, rows.view(np.int32), needles,
+            valid_words=STREAM_STRIDE // 4, monkeypatch=monkeypatch,
+        )
+        buf = np.frombuffer(data, np.uint8)
         for r, nd in enumerate(needles):
-            expect = np.array([nd in rows[g].tobytes() for g in range(n_logical)])
-            np.testing.assert_array_equal(
-                bits[r, :n_logical].astype(bool), expect, err_msg=repr(nd)
-            )
+            starts = [
+                s for s in range(n - len(nd) + 1)
+                if buf[s] == nd[0] and data[s : s + len(nd)] == nd
+            ]
+            expect = np.zeros(G, dtype=bool)
+            expect[[s // STREAM_STRIDE for s in starts]] = True
+            np.testing.assert_array_equal(hits[r], expect, err_msg=repr(nd))
 
 
 class TestSparseSegmentScan:
@@ -806,7 +837,7 @@ class TestNeedleBitmapCache:
 
 class TestNeedleCacheByteCap:
     def test_cache_capped_by_total_bytes(self, monkeypatch):
-        """ADVICE r3: entry-count cap alone let multi-GB streams hold
+        """The entry-count cap alone let multi-GB streams hold
         hundreds of MB of bitmaps; a byte cap must bound it."""
         import bloomsearch_tpu.rowcache as rc_mod
 

@@ -167,7 +167,7 @@ class TestSerializedIngest:
 
 
 class TestSerializedMinMax:
-    """Fast-lane minmax via byte-level extraction (VERDICT r3 item 9)."""
+    """Fast-lane minmax via byte-level extraction."""
 
     def _metadata(self, store):
         files = store.get_maybe_files_for_query(None)

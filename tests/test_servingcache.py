@@ -1,5 +1,5 @@
 """Restart sidecar cache (servingcache.py): roundtrip parity, validation,
-invalidation, and the engine restart fast path (VERDICT r4 item 1)."""
+invalidation, and the engine restart fast path."""
 
 import os
 
